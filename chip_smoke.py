@@ -8,10 +8,14 @@ Phases, one or more lines each; any failure exits non-zero:
      the TF32 switches (set explicitly);
   2. kernels: builds csrc/warp_pass.cu, holds both warp-pass kernels against
      their plain PyTorch versions at the 256 px main path's shapes (n = 64,
-     the fused Dmain batch) in bf16 and f32 and at the 512 px recipe's
-     pass-1 shape, checks the adjoint identity and a grad-of-grad through
-     WarpPass on the card, and times kernel and plain version beside the
-     kernel's bound;
+     the fused Dmain batch) in bf16 and f32, with random tent positions and
+     with the positions and shifts of the port's own ADA draws (bgc at
+     p = 0.5), on the positions' edge cases and at the 512 px recipe's
+     pass-1 shape; checks the adjoint identity, that two adjoint runs are
+     bitwise equal, and a grad-of-grad through WarpPass on the card; and
+     times kernel and plain version at the ADA draws beside the bound of
+     the bytes those draws touch and of a full read; and times the copies
+     around the kernels (swap select, edge pads, shift repeat);
   3. main path: the port's SG2Trainer on configs/ffhq256_sg2ada.yaml at the
      recipe's full widths (batch 32, seeded in-memory data) through Dmain,
      Dreg (R1), Gmain and Greg (PPL) with ADA adjusting p; then a short run
@@ -43,7 +47,8 @@ SMAX = 408
 # at n = 16: the kernels take it too (no size gate).
 SHAPE_512 = dict(n=16, a=1992, v=1024, l=3984, bits=11, smax=664)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+F32_FLOPS = 67e12              # f32 outside the tensor cores: the kernels'
+                               # arithmetic
 # tests/test_warp_pallas.py's tolerances, on every entry.
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
        "bfloat16": dict(rtol=0.03, atol=0.05)}
@@ -76,13 +81,69 @@ def warp_inputs(torch, n, a, v, l, dtype, seed, smax=SMAX):
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     src = torch.randn(n, a, l, device="cuda", generator=g).to(dtype)
-    # Tent rows as the warp builds them: two non-zeros at a real position.
-    pos = smax + torch.rand(n, v, 1, device="cuda", generator=g) * \
+    # Tent positions in random order over the part of A past the pad.
+    pos = smax + torch.rand(n, v, device="cuda", generator=g) * \
         (a - 1 - smax)
-    i = torch.arange(a, device="cuda", dtype=torch.float32)
-    tent = (1.0 - (pos - i).abs()).clamp_min(0.0).to(dtype).contiguous()
     shift = torch.rand(n, l, device="cuda", generator=g) * (2 * smax)
-    return src, tent, shift
+    return src, pos, shift
+
+
+def ada_positions(torch, n, seed):
+    """Both passes' (pos, shift) of the 256 px main path, from the port's
+    own ADA draws (the recipe's bgc pipe at p = 0.5) through its
+    affine_warp_2pass position math."""
+    from style_big_gan_tpu_torch.augment.ada import (AUGPIPE_SPECS,
+                                                      AugmentPipe,
+                                                      warp_positions)
+    pipe = AugmentPipe(**AUGPIPE_SPECS["bgc"])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    p = torch.tensor(0.5, device="cuda")
+    g_inv = pipe._draw_geom(gen, p, n, 256, 256, "cuda")
+    coef, margin = pipe._warp_coef(g_inv, 256, 256)
+    size = 2 * (256 + 2 * margin)
+    _, q1, sigma, q2, tau = warp_positions(coef, size, 512, 512)
+    c = 3
+    return {"pass1": (q1.contiguous(),
+                      sigma.repeat_interleave(c, dim=1).contiguous()),
+            "pass2": (q2.contiguous(),
+                      tau.repeat_interleave(c, dim=1).contiguous())}
+
+
+def warp_bytes(torch, pos, shift, a, esz, bits):
+    """(forward bytes, adjoint bytes) that these inputs need, each input
+    element read once and each output written once: the source rows
+    min(i0 + k + idx, A-1), k = 0..2, that carry a non-zero weight, per
+    (image, lane), or the rows of g whose tent row is non-zero; the
+    output; pos and shift (f32)."""
+    n, v = pos.shape
+    l = shift.shape[1]
+    p = pos.clamp(0.0, float(a - 1))
+    fl = torch.floor(p)
+    i0 = fl.long()
+    w0 = (1.0 - (p - fl).abs()).clamp_min(0.0)
+    w1 = torch.where(i0 + 1 <= a - 1,
+                     (1.0 - (p - fl - 1.0).abs()).clamp_min(0.0),
+                     torch.zeros_like(p))
+    sfl = torch.floor(shift)
+    idx = sfl.long() & ((1 << bits) - 1)
+    frac = shift - sfl
+    touched = 0
+    for b in range(n):          # per image: [V, L] index planes
+        used = torch.zeros(a + 1, l, dtype=torch.bool, device=pos.device)
+        nz_f = (frac[b] != 0)[None, :]
+        for k, nz in ((0, (w0[b] != 0)[:, None].expand(v, l)),
+                      (1, ((w0[b] != 0)[:, None] & nz_f)
+                       | (w1[b] != 0)[:, None]),
+                      (2, (w1[b] != 0)[:, None] & nz_f)):
+            rows = (i0[b][:, None] + k + idx[b][None, :]).clamp(max=a - 1)
+            used.scatter_(0, torch.where(nz, rows, a), True)
+        touched += int(used[:a].sum())
+    g_rows = int(((w0 != 0) | (w1 != 0)).sum())
+    small = (pos.numel() + shift.numel()) * 4
+    fwd = (touched + n * v * l) * esz + small
+    adj = (g_rows * l + n * a * l) * esz + small
+    return fwd, adj
 
 
 def check_close(torch, name, got, want, dtype_name, tail_abs_sum=None):
@@ -115,95 +176,170 @@ def check_close(torch, name, got, want, dtype_name, tail_abs_sum=None):
     return max_abs
 
 
+def edge_positions(torch, case, n, a, v):
+    """Tent positions [n, v] of one edge case of tests/test_torch_warp.py."""
+    ramp = torch.arange(v, dtype=torch.float32, device="cuda")
+    if case == "ends":                 # exactly 0 and A-1 (no column A)
+        pos = torch.where(ramp % 2 == 0, 0.0, a - 1.0)
+    elif case == "clamped":            # below 0 and above A-1
+        pos = torch.linspace(-3.0 * a, 4.0 * a, v, device="cuda")
+    elif case == "nonmonotone":
+        g = torch.Generator(device="cuda")
+        g.manual_seed(5)
+        pos = torch.linspace(0.5, a - 1.5, v, device="cuda")[
+            torch.randperm(v, device="cuda", generator=g)]
+    elif case == "many_per_row":       # |slope| << 1
+        pos = a / 3 + 0.07 * ramp
+    else:                              # skips_rows: |slope| > 2
+        pos = 0.3 + (a - 1.0) / (v - 1) * ramp
+    return pos.expand(n, v).contiguous()
+
+
+def check_pair(torch, warp, label, src, g, pos, shift, bits, dtype_name):
+    """Both kernels against their plain versions; returns their errors."""
+    a = src.shape[1]
+    errs = {}
+    for kname, kfn, pfn, x, extra in (
+            ("warp_pass_fwd", warp.warp_pass_fwd, warp.warp_pass_plain, src,
+             ()),
+            ("warp_pass_adjoint", warp.warp_pass_adjoint,
+             warp.warp_pass_adjoint_plain, g, (a,))):
+        got = kfn(x, pos, shift, bits, *extra)
+        torch.cuda.synchronize()
+        want = pfn(x, pos, shift, bits, *extra)
+        tail = None
+        if kname == "warp_pass_adjoint" and dtype_name == "float32":
+            tail = warp.warp_pass_adjoint_plain(
+                x.abs(), pos, shift, bits, a)[:, -1, :]
+        errs[kname] = check_close(torch, f"{kname} {label} {dtype_name}",
+                                  got, want, dtype_name, tail)
+        del got, want, tail
+    return errs
+
+
 def phase_kernels(torch, warp):
     log("[kernels] building csrc/warp_pass.cu (nvcc, sm_90a)")
     t0 = time.time()
     warp.build(verbose=True)
     log(f"[kernels] build {time.time() - t0:.1f} s")
     n = 2 * BATCH
+    ada = ada_positions(torch, n, 3)
     rows = {}
     for dtype_name, dtype in (("bfloat16", torch.bfloat16),
                               ("float32", torch.float32)):
         for pname, s in PASSES.items():
             a, v, l = s["a"], s["v"], s["l"]
-            src, tent, shift = warp_inputs(torch, n, a, v, l, dtype, 1)
+            src, rpos, rshift = warp_inputs(torch, n, a, v, l, dtype, 1)
             g = torch.randn(n, v, l, device="cuda").to(dtype)
-            esz = src.element_size()
-            flops = 2.0 * n * v * a * l
-            for kname, kfn, pfn, x, out_rows in (
-                    ("warp_pass_fwd", warp.warp_pass_fwd,
-                     warp.warp_pass_plain, src, v),
-                    ("warp_pass_adjoint", warp.warp_pass_adjoint,
-                     warp.warp_pass_adjoint_plain, g, a)):
-                got = kfn(x, tent, shift, BITS)
-                torch.cuda.synchronize()
-                want = pfn(x, tent, shift, BITS)
-                tail = None
-                if kname == "warp_pass_adjoint" and dtype_name == "float32":
-                    tail = warp.warp_pass_adjoint_plain(
-                        x.abs(), tent.abs(), shift, BITS)[:, -1, :]
-                err = check_close(torch, f"{kname} {pname} {dtype_name} "
-                                  f"n={n}", got, want, dtype_name, tail)
-                del got, want, tail
-                ms = time_ms(torch, lambda: kfn(x, tent, shift, BITS))
-                plain_ms = time_ms(torch, lambda: pfn(x, tent, shift, BITS),
-                                   iters=3, warmup=1)
-                nbytes = (x.numel() + tent.numel() + n * out_rows * l) * esz \
-                    + shift.numel() * 4
-                bound_ms = max(nbytes / HBM_BYTES_PER_S,
-                               flops / PEAK_FLOPS[dtype_name]) * 1e3
-                bound_by = "bytes" if nbytes / HBM_BYTES_PER_S > \
-                    flops / PEAK_FLOPS[dtype_name] else "operations"
-                log(f"  {kname} {pname} {dtype_name}: kernel {ms:.3f} ms, "
-                    f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-                    f"({bound_by}; {nbytes / 1e6:.0f} MB, "
-                    f"{flops / 1e9:.0f} GFLOP)")
-                rows[(kname, pname, dtype_name)] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bound_ms, bound_by=bound_by)
+            apos, ashift = ada[pname]
+            check_pair(torch, warp, f"{pname} n={n} random positions", src,
+                       g, rpos, rshift, BITS, dtype_name)
+            errs = check_pair(torch, warp, f"{pname} n={n} ADA p=0.5", src,
+                              g, apos, ashift, BITS, dtype_name)
             # Adjoint identity <fwd(x), g> == <x, adj(g)> on the card.
             if dtype_name == "float32":
-                lhs = float((warp.warp_pass_fwd(src, tent, shift, BITS)
+                lhs = float((warp.warp_pass_fwd(src, rpos, rshift, BITS)
                              .double() * g.double()).sum())
                 rhs = float((src.double() * warp.warp_pass_adjoint(
-                    g, tent, shift, BITS).double()).sum())
+                    g, rpos, rshift, BITS, a).double()).sum())
                 rel = abs(lhs - rhs) / max(abs(lhs), 1e-30)
                 log(f"  adjoint identity {pname}: rel diff {rel:.3e} "
                     f"(tol 1e-4)")
                 if not rel < 1e-4:
                     raise AssertionError("adjoint identity fails")
-            del src, tent, shift, g
+            for label, pos, shift in (("random", rpos, rshift),
+                                      ("ADA", apos, ashift)):
+                once = warp.warp_pass_adjoint(g, pos, shift, BITS, a)
+                again = warp.warp_pass_adjoint(g, pos, shift, BITS, a)
+                if not torch.equal(once, again):
+                    raise AssertionError(f"adjoint {pname} {label} "
+                                         f"{dtype_name}: two runs differ")
+                del once, again
+            log(f"  adjoint {pname} {dtype_name}: two runs bitwise equal "
+                "(random and ADA positions)")
+
+            esz = src.element_size()
+            small = (apos.numel() + ashift.numel()) * 4
+            full = (n * a * l + n * v * l) * esz + small
+            touched = dict(zip(("warp_pass_fwd", "warp_pass_adjoint"),
+                               warp_bytes(torch, apos, ashift, a, esz, BITS)))
+            flops = {"warp_pass_fwd": 10.0 * n * v * l,
+                     "warp_pass_adjoint": 4.0 * n * v * l + 4.0 * n * a * l}
+            for kname, kfn, pfn, x, extra in (
+                    ("warp_pass_fwd", warp.warp_pass_fwd,
+                     warp.warp_pass_plain, src, ()),
+                    ("warp_pass_adjoint", warp.warp_pass_adjoint,
+                     warp.warp_pass_adjoint_plain, g, (a,))):
+                ms = time_ms(torch, lambda: kfn(x, apos, ashift, BITS,
+                                                *extra))
+                plain_ms = time_ms(torch, lambda: pfn(x, apos, ashift, BITS,
+                                                      *extra),
+                                   iters=3, warmup=1)
+                bytes_ms = touched[kname] / HBM_BYTES_PER_S * 1e3
+                ops_ms = flops[kname] / F32_FLOPS * 1e3
+                bound_ms = max(bytes_ms, ops_ms)
+                bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+                full_ms = full / HBM_BYTES_PER_S * 1e3
+                log(f"  {kname} {pname} {dtype_name} (ADA p=0.5 positions): "
+                    f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+                    f"{bound_ms:.4f} ms ({bound_by}; touched "
+                    f"{touched[kname] / 1e6:.1f} MB, "
+                    f"{100 * bound_ms / ms:.1f} % of it), full-read bound "
+                    f"{full_ms:.4f} ms ({full / 1e6:.1f} MB), "
+                    f"{flops[kname] / 1e9:.2f} GFLOP f32")
+                rows[(kname, pname, dtype_name)] = dict(
+                    max_abs_err=errs[kname], ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by)
+            del src, g, rpos, rshift
             torch.cuda.empty_cache()
 
+    # Edge cases of the tent positions at the pass-1 shape, n = 4.
+    a, v, l = PASSES["pass1"]["a"], PASSES["pass1"]["v"], PASSES["pass1"]["l"]
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16),
+                              ("float32", torch.float32)):
+        src, _, shift = warp_inputs(torch, 4, a, v, l, dtype, 6)
+        g = torch.randn(4, v, l, device="cuda").to(dtype)
+        for case in ("ends", "clamped", "nonmonotone", "many_per_row",
+                     "skips_rows"):
+            pos = edge_positions(torch, case, 4, a, v)
+            check_pair(torch, warp, f"pass1 n=4 {case}", src, g, pos, shift,
+                       BITS, dtype_name)
+            once = warp.warp_pass_adjoint(g, pos, shift, BITS, a)
+            if not torch.equal(once, warp.warp_pass_adjoint(g, pos, shift,
+                                                             BITS, a)):
+                raise AssertionError(f"adjoint {case} {dtype_name}: two "
+                                     "runs differ")
+        del src, g, shift
+    torch.cuda.empty_cache()
+
     s5 = SHAPE_512
-    src, tent, shift = warp_inputs(torch, s5["n"], s5["a"], s5["v"], s5["l"],
-                                   torch.bfloat16, 2, smax=s5["smax"])
+    src, pos, shift = warp_inputs(torch, s5["n"], s5["a"], s5["v"], s5["l"],
+                                  torch.bfloat16, 2, smax=s5["smax"])
     g = torch.randn(s5["n"], s5["v"], s5["l"], device="cuda").to(
         torch.bfloat16)
-    for kname, kfn, pfn, x in (
-            ("warp_pass_fwd", warp.warp_pass_fwd, warp.warp_pass_plain, src),
-            ("warp_pass_adjoint", warp.warp_pass_adjoint,
-             warp.warp_pass_adjoint_plain, g)):
-        got = kfn(x, tent, shift, s5["bits"])
-        torch.cuda.synchronize()
-        check_close(torch, f"{kname} 512px pass1 bfloat16 n={s5['n']}", got,
-                    pfn(x, tent, shift, s5["bits"]), "bfloat16")
-        ms = time_ms(torch, lambda: kfn(x, tent, shift, s5["bits"]), iters=5)
-        log(f"  {kname} 512px pass1 bfloat16: kernel {ms:.3f} ms")
-    del src, tent, shift, g, got
+    check_pair(torch, warp, f"512px pass1 n={s5['n']}", src, g, pos, shift,
+               s5["bits"], "bfloat16")
+    for kname, kfn, x, extra in (
+            ("warp_pass_fwd", warp.warp_pass_fwd, src, ()),
+            ("warp_pass_adjoint", warp.warp_pass_adjoint, g, (s5["a"],))):
+        ms = time_ms(torch, lambda: kfn(x, pos, shift, s5["bits"], *extra),
+                     iters=5)
+        log(f"  {kname} 512px pass1 bfloat16 (random positions): kernel "
+            f"{ms:.4f} ms")
+    del src, pos, shift, g
     torch.cuda.empty_cache()
 
     # Grad-of-grad through the autograd pair (R1's double backward) against
     # autograd through the plain version.
     # Shifts below 14 (bits 4); tent rows at positions 14..39, so the
     # clamped tail carries weight.
-    src, tent, shift = warp_inputs(torch, 2, 40, 24, 136, torch.float32, 4,
-                                   smax=14)
+    src, pos, shift = warp_inputs(torch, 2, 40, 24, 136, torch.float32, 4,
+                                  smax=14)
     shift = shift.remainder(14.0)
 
     def gg(fn):
         s = src.clone().requires_grad_(True)
-        (g1,) = torch.autograd.grad((fn(s, tent, shift, 4) ** 2).sum(), s,
+        (g1,) = torch.autograd.grad((fn(s, pos, shift, 4) ** 2).sum(), s,
                                     create_graph=True)
         (g2,) = torch.autograd.grad((g1 ** 2).sum(), s)
         return g2
@@ -211,6 +347,30 @@ def phase_kernels(torch, warp):
     check_close(torch, "grad-of-grad WarpPass vs plain autograd",
                 gg(warp.warp_pass), gg(warp.warp_pass_plain), "float32")
     return rows
+
+
+def phase_glue(torch):
+    """Times the copies around the two kernel launches of one warp at the
+    256 px main path (n = 64, bf16): the swap select, each pass's edge-pad
+    (pass 2's reads pass 1's output transposed) and the shift's
+    repeat_interleave."""
+    from style_big_gan_tpu_torch.augment.ada import _edge_pad_front
+    n, side, out_side = 2 * BATCH, 816, 512
+    up = torch.randn(n, side, side, 3, device="cuda").to(torch.bfloat16)
+    tmp = torch.randn(n, out_side, side, 3, device="cuda").to(torch.bfloat16)
+    swap = torch.arange(n, device="cuda") % 2 == 0
+    sigma = torch.rand(n, side, device="cuda") * 2 * SMAX
+    parts = {
+        "swap select": lambda: torch.where(swap[:, None, None, None],
+                                           up.transpose(1, 2), up),
+        "pass-1 edge pad": lambda: _edge_pad_front(up, SMAX, 1),
+        "pass-2 transpose + edge pad": lambda: _edge_pad_front(
+            tmp.transpose(1, 2), SMAX, 1),
+        "pass-1 shift repeat_interleave": lambda: sigma.repeat_interleave(
+            3, dim=1).contiguous(),
+    }
+    for name, fn in parts.items():
+        log(f"[glue] {name}: {time_ms(torch, fn):.4f} ms")
 
 
 def run_trainer(torch, out_dir, batches, extra):
@@ -336,6 +496,7 @@ def main():
     log(f"[env] nvidia-smi name,power.limit: {smi}")
 
     rows = phase_kernels(torch, warp)
+    phase_glue(torch)
     launches = phase_main_path(torch, warp)
 
     replaces = {"warp_pass_fwd":

@@ -124,6 +124,11 @@ def _reflect_pad(x: torch.Tensor, dim: int, lo: int, hi: int):
     return x.index_select(dim, torch.where(m < size, m, period - m))
 
 
+def _pick(gate: torch.Tensor, x: torch.Tensor, fallback) -> torch.Tensor:
+    """x where gate holds, else the constant fallback."""
+    return torch.where(gate, x, torch.full_like(x, fallback))
+
+
 # ------------------------------------------------------- two-pass warp
 
 def _edge_pad_front(x: torch.Tensor, t: int, dim: int) -> torch.Tensor:
@@ -134,39 +139,28 @@ def _edge_pad_front(x: torch.Tensor, t: int, dim: int) -> torch.Tensor:
     return torch.cat([edge.expand(reps), x], dim=dim)
 
 
-def _tent_matrix(pos: torch.Tensor, size: int) -> torch.Tensor:
-    """[n, V, size] linear-interpolation weights for clamped sampling at
-    positions pos [n, V]."""
-    pos = pos.clamp(0.0, float(size - 1))
-    i = torch.arange(size, dtype=torch.float32, device=pos.device)
-    return (1.0 - (pos[..., None] - i).abs()).clamp_min(0.0)
-
-
-def _scanline_pass(padded: torch.Tensor, tent: torch.Tensor,
+def _scanline_pass(padded: torch.Tensor, pos: torch.Tensor,
                    shift: torch.Tensor, smax: int) -> torch.Tensor:
     """One pass over padded [n, A, B, c]: per-column fractional clamp-shift
-    along dim 1 by shift [n, B], then the tent resample [n, V, A] ->
-    [n, V, B, c], through the warp-pass kernel (lanes = B * c)."""
+    along dim 1 by shift [n, B], then the tent resample at positions
+    pos [n, V] -> [n, V, B, c], through the warp-pass kernel (lanes =
+    B * c)."""
     n, a, bcols, c = padded.shape
     bits = max(1, int(np.ceil(np.log2(2 * smax + 2))))
     flat = padded.contiguous().reshape(n, a, bcols * c)
     shift_l = shift.repeat_interleave(c, dim=1).contiguous()
-    out = warp_pass(flat, tent.to(padded.dtype).contiguous(), shift_l, bits)
-    return out.reshape(n, tent.shape[1], bcols, c)
+    out = warp_pass(flat, pos.contiguous(), shift_l, bits)
+    return out.reshape(n, pos.shape[1], bcols, c)
 
 
-def affine_warp_2pass(src: torch.Tensor, coef: torch.Tensor, out_h: int,
-                      out_w: int) -> torch.Tensor:
-    """Per-image affine warp out[yo,xo] = src[py, px] of NHWC ``src`` as a
-    2-pass scanline decomposition; coef [n, 6] = (a, b, c, d, e, f) with
-    px = a*xo + b*yo + c, py = d*xo + e*yo + f (see the JAX function of the
-    same name for the derivation)."""
-    n, size, size2, _ = src.shape
-    assert size == size2, "2-pass warp requires square input"
+def warp_positions(coef: torch.Tensor, size: int, out_h: int, out_w: int):
+    """The two passes' sampling geometry of ``affine_warp_2pass``:
+    (swap [n] bool, q1 [n, out_h] tent positions and sigma [n, size] column
+    shifts of pass 1, q2 [n, out_w] and tau [n, out_h] of pass 2), all f32;
+    smax = size // 2."""
     smax = size // 2
     a, b, c0, d, e, f0 = coef.float().unbind(dim=1)
     swap = d.abs() > a.abs()
-    src2 = torch.where(swap[:, None, None, None], src.transpose(1, 2), src)
     ax = torch.where(swap, d, a)
     bx = torch.where(swap, e, b)
     cx0 = torch.where(swap, f0, c0)
@@ -178,21 +172,32 @@ def affine_warp_2pass(src: torch.Tensor, coef: torch.Tensor, out_h: int,
     be = by - al * bx
     ga = cy0 - al * cx0
 
-    dev = src.device
+    dev = coef.device
     xs = torch.arange(size, dtype=torch.float32, device=dev)
     xc = (size - 1) / 2.0
     sigma = (al[:, None] * (xs[None, :] - xc)).clamp(-smax, smax) + smax
     v = torch.arange(out_h, dtype=torch.float32, device=dev)
     q1 = be[:, None] * v[None, :] + (ga + al * xc)[:, None]
-    t1 = _tent_matrix(q1, size + smax)
-    tmp = _scanline_pass(_edge_pad_front(src2, smax, 1), t1, sigma, smax)
-
     yc = (out_h - 1) / 2.0
     tau = (bx[:, None] * (v[None, :] - yc)).clamp(-smax, smax) + smax
     u = torch.arange(out_w, dtype=torch.float32, device=dev)
     q2 = ax[:, None] * u[None, :] + (cx0 + bx * yc)[:, None]
-    t2 = _tent_matrix(q2, size + smax)
-    out = _scanline_pass(_edge_pad_front(tmp.transpose(1, 2), smax, 1), t2,
+    return swap, q1, sigma, q2, tau
+
+
+def affine_warp_2pass(src: torch.Tensor, coef: torch.Tensor, out_h: int,
+                      out_w: int) -> torch.Tensor:
+    """Per-image affine warp out[yo,xo] = src[py, px] of NHWC ``src`` as a
+    2-pass scanline decomposition; coef [n, 6] = (a, b, c, d, e, f) with
+    px = a*xo + b*yo + c, py = d*xo + e*yo + f (see the JAX function of the
+    same name for the derivation)."""
+    n, size, size2, _ = src.shape
+    assert size == size2, "2-pass warp requires square input"
+    smax = size // 2
+    swap, q1, sigma, q2, tau = warp_positions(coef, size, out_h, out_w)
+    src2 = torch.where(swap[:, None, None, None], src.transpose(1, 2), src)
+    tmp = _scanline_pass(_edge_pad_front(src2, smax, 1), q1, sigma, smax)
+    out = _scanline_pass(_edge_pad_front(tmp.transpose(1, 2), smax, 1), q2,
                          tau, smax)
     return out.transpose(1, 2)
 
@@ -327,58 +332,12 @@ class AugmentPipe:
         p = torch.as_tensor(p, dtype=torch.float32, device=dev)
         images = images.float()
         gen = generator
-        one = torch.ones(n, device=dev)
-
-        def pick(gate, x, fallback):
-            return torch.where(gate, x, torch.full_like(x, fallback))
 
         if any(v > 0 for v in (self.xflip, self.rotate90, self.xint,
                                self.scale, self.rotate, self.aniso,
                                self.xfrac)):
-            G_inv = torch.eye(3, device=dev).repeat(n, 1, 1)
-            if self.xflip > 0:
-                i = self._randint(gen, (n,), 2, dev)
-                i = pick(self._gate(gen, (n,), self.xflip * p, dev), i, 0.0)
-                G_inv = G_inv @ scale2d_inv(1.0 - 2.0 * i, one)
-            if self.rotate90 > 0:
-                i = self._randint(gen, (n,), 4, dev)
-                i = pick(self._gate(gen, (n,), self.rotate90 * p, dev), i,
-                         0.0)
-                G_inv = G_inv @ rotate2d_inv(-np.pi / 2 * i)
-            if self.xint > 0:
-                t = self._uniform(gen, (n, 2), -self.xint_max, self.xint_max,
-                                  dev)
-                t = pick(self._gate(gen, (n, 1), self.xint * p, dev), t, 0.0)
-                G_inv = G_inv @ translate2d_inv(torch.round(t[:, 0] * w),
-                                                torch.round(t[:, 1] * h))
-            if self.scale > 0:
-                s = self._lognormal(gen, (n,), self.scale_std, dev)
-                s = pick(self._gate(gen, (n,), self.scale * p, dev), s, 1.0)
-                G_inv = G_inv @ scale2d_inv(s, s)
-            p_rot = 1.0 - torch.sqrt((1.0 - self.rotate * p).clamp(0.0, 1.0))
-            if self.rotate > 0:
-                theta = self._uniform(gen, (n,), -np.pi * self.rotate_max,
-                                      np.pi * self.rotate_max, dev)
-                theta = pick(self._gate(gen, (n,), p_rot, dev), theta, 0.0)
-                G_inv = G_inv @ rotate2d_inv(-theta)
-            if self.aniso > 0:
-                s = self._lognormal(gen, (n,), self.aniso_std, dev)
-                s = pick(self._gate(gen, (n,), self.aniso * p, dev), s, 1.0)
-                G_inv = G_inv @ scale2d_inv(s, 1.0 / s)
-            if self.rotate > 0:
-                theta = self._uniform(gen, (n,), -np.pi * self.rotate_max,
-                                      np.pi * self.rotate_max, dev)
-                theta = pick(self._gate(gen, (n,), p_rot, dev), theta, 0.0)
-                if self.debug_percentile is not None:
-                    # The reference zeroes the post-rotation in debug mode
-                    # (augmentations.py:257-258).
-                    theta = torch.zeros_like(theta)
-                G_inv = G_inv @ rotate2d_inv(-theta)
-            if self.xfrac > 0:
-                t = self._normal(gen, (n, 2), self.xfrac_std, dev)
-                t = pick(self._gate(gen, (n, 1), self.xfrac * p, dev), t, 0.0)
-                G_inv = G_inv @ translate2d_inv(t[:, 0] * w, t[:, 1] * h)
-            images = self._execute_geom(images, G_inv)
+            images = self._execute_geom(
+                images, self._draw_geom(gen, p, n, h, w, dev))
 
         if any(v > 0 for v in (self.brightness, self.contrast, self.lumaflip,
                                self.hue, self.saturation)):
@@ -389,30 +348,30 @@ class AugmentPipe:
                                  device=dev)
             if self.brightness > 0:
                 b = self._normal(gen, (n,), self.brightness_std, dev)
-                b = pick(self._gate(gen, (n,), self.brightness * p, dev), b,
-                         0.0)
+                b = _pick(self._gate(gen, (n,), self.brightness * p, dev), b,
+                          0.0)
                 C = translate3d(b, b, b) @ C
             if self.contrast > 0:
                 s = self._lognormal(gen, (n,), self.contrast_std, dev)
-                s = pick(self._gate(gen, (n,), self.contrast * p, dev), s,
-                         1.0)
+                s = _pick(self._gate(gen, (n,), self.contrast * p, dev), s,
+                          1.0)
                 C = scale3d(s, s, s) @ C
             if self.lumaflip > 0:
                 i = self._randint(gen, (n,), 2, dev)
-                i = pick(self._gate(gen, (n,), self.lumaflip * p, dev), i,
-                         0.0)
+                i = _pick(self._gate(gen, (n,), self.lumaflip * p, dev), i,
+                          0.0)
                 house = eye4 - 2.0 * vv
                 C = torch.where(i[:, None, None] > 0.5, house, eye4) @ C
             if self.hue > 0 and c > 1:
                 theta = self._uniform(gen, (n,), -np.pi * self.hue_max,
                                       np.pi * self.hue_max, dev)
-                theta = pick(self._gate(gen, (n,), self.hue * p, dev), theta,
-                             0.0)
+                theta = _pick(self._gate(gen, (n,), self.hue * p, dev), theta,
+                              0.0)
                 C = rotate3d(v, theta) @ C
             if self.saturation > 0 and c > 1:
                 s = self._lognormal(gen, (n,), self.saturation_std, dev)
-                s = pick(self._gate(gen, (n,), self.saturation * p, dev), s,
-                         1.0)
+                s = _pick(self._gate(gen, (n,), self.saturation * p, dev), s,
+                          1.0)
                 C = (vv + (eye4 - vv) * s[:, None, None]) @ C
             images = self._execute_color(images, C)
 
@@ -427,8 +386,8 @@ class AugmentPipe:
                     self.debug_percentile) * self.noise_std, dev)
             else:
                 sigma = self._normal(gen, (n,), self.noise_std, dev).abs()
-            sigma = pick(self._gate(gen, (n,), self.noise * p, dev), sigma,
-                         0.0)
+            sigma = _pick(self._gate(gen, (n,), self.noise * p, dev), sigma,
+                          0.0)
             nz = torch.randn(images.shape, generator=gen, device=dev)
             images = images + nz * sigma[:, None, None, None]
         if self.cutout > 0:
@@ -447,6 +406,57 @@ class AugmentPipe:
 
     # ------------------------------------------------------------ executors
 
+    def _draw_geom(self, gen, p: torch.Tensor, n: int, h: int, w: int,
+                   dev) -> torch.Tensor:
+        """The geometric stage's random inverse transforms G_inv [n, 3, 3],
+        drawn in the order of the JAX pipe."""
+        one = torch.ones(n, device=dev)
+
+        G_inv = torch.eye(3, device=dev).repeat(n, 1, 1)
+        if self.xflip > 0:
+            i = self._randint(gen, (n,), 2, dev)
+            i = _pick(self._gate(gen, (n,), self.xflip * p, dev), i, 0.0)
+            G_inv = G_inv @ scale2d_inv(1.0 - 2.0 * i, one)
+        if self.rotate90 > 0:
+            i = self._randint(gen, (n,), 4, dev)
+            i = _pick(self._gate(gen, (n,), self.rotate90 * p, dev), i,
+                      0.0)
+            G_inv = G_inv @ rotate2d_inv(-np.pi / 2 * i)
+        if self.xint > 0:
+            t = self._uniform(gen, (n, 2), -self.xint_max, self.xint_max,
+                              dev)
+            t = _pick(self._gate(gen, (n, 1), self.xint * p, dev), t, 0.0)
+            G_inv = G_inv @ translate2d_inv(torch.round(t[:, 0] * w),
+                                            torch.round(t[:, 1] * h))
+        if self.scale > 0:
+            s = self._lognormal(gen, (n,), self.scale_std, dev)
+            s = _pick(self._gate(gen, (n,), self.scale * p, dev), s, 1.0)
+            G_inv = G_inv @ scale2d_inv(s, s)
+        p_rot = 1.0 - torch.sqrt((1.0 - self.rotate * p).clamp(0.0, 1.0))
+        if self.rotate > 0:
+            theta = self._uniform(gen, (n,), -np.pi * self.rotate_max,
+                                  np.pi * self.rotate_max, dev)
+            theta = _pick(self._gate(gen, (n,), p_rot, dev), theta, 0.0)
+            G_inv = G_inv @ rotate2d_inv(-theta)
+        if self.aniso > 0:
+            s = self._lognormal(gen, (n,), self.aniso_std, dev)
+            s = _pick(self._gate(gen, (n,), self.aniso * p, dev), s, 1.0)
+            G_inv = G_inv @ scale2d_inv(s, 1.0 / s)
+        if self.rotate > 0:
+            theta = self._uniform(gen, (n,), -np.pi * self.rotate_max,
+                                  np.pi * self.rotate_max, dev)
+            theta = _pick(self._gate(gen, (n,), p_rot, dev), theta, 0.0)
+            if self.debug_percentile is not None:
+                # The reference zeroes the post-rotation in debug mode
+                # (augmentations.py:257-258).
+                theta = torch.zeros_like(theta)
+            G_inv = G_inv @ rotate2d_inv(-theta)
+        if self.xfrac > 0:
+            t = self._normal(gen, (n, 2), self.xfrac_std, dev)
+            t = _pick(self._gate(gen, (n, 1), self.xfrac * p, dev), t, 0.0)
+            G_inv = G_inv @ translate2d_inv(t[:, 0] * w, t[:, 1] * h)
+        return G_inv
+
     def _resample_mats(self, h, margin, dev):
         key = (h, margin, str(dev))
         if key not in self._mats:
@@ -456,16 +466,10 @@ class AugmentPipe:
                 for m in (b_up, b_dn))
         return self._mats[key]
 
-    def _execute_geom(self, images: torch.Tensor,
-                      G_inv: torch.Tensor) -> torch.Tensor:
-        """reflect-pad -> 2x upsample -> affine warp -> 2x downsample
-        (reference: augmentations.py:274-305), with the exact group delay
-        of the sym6 low-pass for alignment."""
-        n, c, h, w = images.shape
-        if h != w:
-            raise NotImplementedError("the two-pass warp takes square "
-                                      "images; the gather warp is not "
-                                      "ported yet")
+    def _warp_coef(self, G_inv: torch.Tensor, h: int, w: int):
+        """(coef [n, 6] of ``affine_warp_2pass`` in the 2x upsampled,
+        margin-padded frame, margin): G_inv with the exact group delay of
+        the sym6 low-pass for alignment."""
         hz = self.hz_geom
         taps = int(hz.shape[0])
         margin = min(max(h, w) // 4, 64) + taps
@@ -474,17 +478,28 @@ class AugmentPipe:
         d_u = com - taps // 2
         d_d = com - (taps - 1) // 2
         cx, cy = (w - 1) / 2.0, (h - 1) / 2.0
-        b_up, b_dn = self._resample_mats(h, margin, images.device)
-        x = images.permute(0, 2, 3, 1).to(self.warp_dtype)        # NHWC
-        up = torch.einsum("ri,nixc->nrxc", b_up, x)
-        up = torch.einsum("xj,nrjc->nrxc", b_up, up)
         g00, g01, g02 = G_inv[:, 0, 0], G_inv[:, 0, 1], G_inv[:, 0, 2]
         g10, g11, g12 = G_inv[:, 1, 0], G_inv[:, 1, 1], G_inv[:, 1, 2]
         c0 = (-g00 * (d_d + 2 * cx) - g01 * (d_d + 2 * cy)
               + 2 * g02 + 2 * cx + 2 * margin - d_u)
         f0 = (-g10 * (d_d + 2 * cx) - g11 * (d_d + 2 * cy)
               + 2 * g12 + 2 * cy + 2 * margin - d_u)
-        coef = torch.stack([g00, g01, c0, g10, g11, f0], dim=1)
+        return torch.stack([g00, g01, c0, g10, g11, f0], dim=1), margin
+
+    def _execute_geom(self, images: torch.Tensor,
+                      G_inv: torch.Tensor) -> torch.Tensor:
+        """reflect-pad -> 2x upsample -> affine warp -> 2x downsample
+        (reference: augmentations.py:274-305)."""
+        n, c, h, w = images.shape
+        if h != w:
+            raise NotImplementedError("the two-pass warp takes square "
+                                      "images; the gather warp is not "
+                                      "ported yet")
+        coef, margin = self._warp_coef(G_inv, h, w)
+        b_up, b_dn = self._resample_mats(h, margin, images.device)
+        x = images.permute(0, 2, 3, 1).to(self.warp_dtype)        # NHWC
+        up = torch.einsum("ri,nixc->nrxc", b_up, x)
+        up = torch.einsum("xj,nrjc->nrxc", b_up, up)
         warped = affine_warp_2pass(up, coef, 2 * h, 2 * w)
         out = torch.einsum("ri,nixc->nrxc", b_dn, warped)
         out = torch.einsum("xj,nrjc->nrxc", b_dn, out)

@@ -11,7 +11,8 @@ the union of the intervals of the device's own activities (kernels, copies,
 memsets; the profiler's annotation ranges on the device timeline are left
 out, since they repeat the time of the kernels inside them); the sum of
 those activities' times (above the busy time where streams overlap); the
-idle share of the wall time (1 - busy / wall); the warp-pass kernels' time;
+idle share of the wall time (1 - busy / wall); the warp-pass kernels' time
+(every kernel of csrc/warp_pass.cu is named warp_pass_*);
 and the top kernels by device time.  It raises if the busy time exceeds
 the wall time.  Writes each phase's top table to --out.  Needs CUDA.
 """
@@ -115,7 +116,7 @@ def main(argv=None):
                 by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3,
                                    cnt + 1)
             warp_ms = sum(ms for k, (ms, _) in by_name.items()
-                          if "tent_product" in k or "splat_gather" in k)
+                          if "warp_pass_" in k)
             print(f"[profile] {name}: wall {wall_ms:.3f} ms, device busy "
                   f"{busy_ms:.3f} ms, activity sum {sum_ms:.3f} ms, idle "
                   f"{1 - busy_ms / wall_ms:.2%}, warp kernels "
