@@ -1,0 +1,14 @@
+"""step.mfu: the whole training step's share of the card's peak: the time
+the chip would need for the timed periods' model FLOPs, each precision at
+its data-sheet peak (flops/stylegan2.py, peaks.json), over their
+host-clock seconds; nothing on a card without a peaks entry."""
+
+from gpubench.flops import stylegan2
+
+
+def read(record):
+    if not record.peaks or record.seconds <= 0 or not record.batches:
+        return None
+    flops, _ = stylegan2.period_flops(record.config, record.batches)
+    return 100.0 * stylegan2.seconds_at_peak(flops, record.peaks) / \
+        record.seconds
