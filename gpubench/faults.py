@@ -1,12 +1,15 @@
 """Faults planted in the program underneath a run: each comparison has to
 come out as not correct with one of them in place.  Each fault is a
 function of a ``pytest.MonkeyPatch``, which takes it out again on
-``undo()``.  The CPU tests plant them at micro size
+``undo()``.  The faults here reach the trainer's shared code, so every
+family can have them; a family's own (an answer altered inside its model)
+are its module's ``FAULTS`` (families/<family>.py).  ``of(config)`` gives
+both.  The CPU tests plant them at micro size
 (tests/test_gpubench_control.py); ``readings.py --fault`` plants them at
 the cell's own size on the card.  The exchange between chips has no fault
 here: every cell runs on one card."""
 
-from style_big_gan_tpu_torch.models import stylegan2 as port_sg2
+from gpubench import harness
 from style_big_gan_tpu_torch.train import loss_arch, regularizers, steps
 
 
@@ -26,15 +29,6 @@ def half_batch(monkeypatch):
         h = real_logits.shape[0] // 2
         return orig(self, real_logits[:h], gen_logits[:h])
     monkeypatch.setattr(loss_arch.LossArchBase, "_d_loss", d_loss)
-
-
-def altered(monkeypatch):
-    """An answer altered where it is produced: G's images off by 1 %."""
-    orig = port_sg2.SynthesisNetwork.forward
-
-    def forward(self, *a, **k):
-        return orig(self, *a, **k) * 1.01
-    monkeypatch.setattr(port_sg2.SynthesisNetwork, "forward", forward)
 
 
 def r1_weight(monkeypatch):
@@ -57,8 +51,7 @@ def ppl_weight(monkeypatch):
 
 
 FAULTS = {"unchanged": unchanged, "half_batch": half_batch,
-          "altered": altered, "r1_weight": r1_weight,
-          "ppl_weight": ppl_weight}
+          "r1_weight": r1_weight, "ppl_weight": ppl_weight}
 # the regularizer a fault needs in the configuration, where it needs one
 NEEDS = {"r1_weight": "r1", "ppl_weight": "ppl"}
 
@@ -66,3 +59,10 @@ NEEDS = {"r1_weight": "r1", "ppl_weight": "ppl"}
 def applies(fault: str, config: dict) -> bool:
     need = NEEDS.get(fault)
     return need is None or need in config["regularizers"]
+
+
+def of(config: dict) -> dict:
+    """Every fault a cell of ``config`` can have, by name: those of this
+    file that apply to it, then its family's own."""
+    return {**{n: f for n, f in FAULTS.items() if applies(n, config)},
+            **harness.family(config).FAULTS}

@@ -191,9 +191,3 @@ def period_flops(config: dict, batches: int) -> Tuple[Flops, Dict[str, Flops]]:
         runs["Greg"] = batches // int(regs["ppl"]["interval"])
     per = {k: _scaled(v, runs[k]) for k, v in phases.items()}
     return _merge(*per.values()), per
-
-
-def seconds_at_peak(flops: Flops, peaks: Dict[str, float]) -> float:
-    """The least time the chip could take: each precision's FLOPs over its
-    peak rate."""
-    return sum(v / peaks[p] for p, v in flops.items())

@@ -4,6 +4,8 @@ plain reference that decides ``correct``.
 
 Everything a cell needs is found by name from ``BENCHMARK.json``:
 ``configs/<config>.json`` (the model, its recipe and its sizes),
+``families/<family>.py`` for the config's ``"family"`` (its plain
+reference, FLOP count, regularizer phases, own faults and micro sizes),
 ``traffic/<traffic>.json`` (the ADA mix, the data and the period),
 ``limits/<workload>.json`` (the limit of each compared number) and
 ``metrics/<name>.py`` (a per-layer reader: ``read(record)`` returns a number
@@ -21,10 +23,11 @@ The run, in order:
 2. Set-up is everything up to the end of the first tick: the imports, the
    data, the trainer's set-up and the first period, which runs window 1
    eagerly, captures window 2 into the CUDA graph, and runs the first R1
-   and PPL.  Where that period took less than twice ``--seconds``, set-up
-   runs one more period, whose length is then the pace (the first holds
-   the eager window and the capture).  ``setup_s`` is the process's start
-   to the end of set-up.
+   and PPL.  Where that period took less than six times ``--seconds``,
+   set-up runs one more period, whose length is then the pace (the first
+   holds the eager window and the capture, and the one after it still
+   runs slower and less steadily than the later ones).  ``setup_s`` is the
+   process's start to the end of set-up.
 3. The timed window is the next ``n`` whole ticks, ``n`` the whole number
    of periods at that pace nearest ``--seconds`` (at least one): every
    image of those periods over their seconds, every phase at its
@@ -34,17 +37,20 @@ The run, in order:
    window, for the device's busy time, the warp kernels and the breakdown.
 5. During the first period the harness keeps what the program produced in
    its first three windows (the eager one, the captured one, the first
-   replay): the D and G loss of each batch, the first gradient each
-   optimizer received (read from Adam's first moment), the change of every
-   parameter of G, D and G_ema over each window's Dmain and Gmain phases,
-   each R1 and PPL call's penalty and the gradient it gave its optimizer,
-   and the program's whole state at the start of the second and the third
-   window and just before each R1 and PPL call (weights, buffers, Adam's
-   moments and counts, the generator's state, PPL's mean; on the host).
+   replay): the D and G loss of each batch with the batch's index in its
+   window (under ``n_dis`` > 1 a window has fewer G rows than D rows; the
+   comparison pairs rows by statistic, window and index), the first
+   gradient each optimizer received (read from Adam's first moment), the
+   change of every parameter of G, D and G_ema over each window's Dmain and
+   Gmain phases, each R1 and PPL call's penalty and the gradient it gave
+   its optimizer, and the program's whole state at the start of the second
+   and the third window and just before each R1 and PPL call (weights,
+   buffers, Adam's moments and counts, the generator's state, PPL's mean;
+   on the host).
    After the trainer has ended and its memory is freed, the plain
    reference computes the first window from the seed, each later one and
-   each regularizer call from the program's state at its start
-   (reference/training.py), and the gaps are compared with the limits
+   each regularizer call from the program's state at its start (the
+   family's ``follow``), and the gaps are compared with the limits
    (``compare``).  Besides the public hooks this reaches into the
    trainer's ``_run_window``, ``_pending_stats``, ``steps`` and optimizer
    state (PERF.md, section 7).
@@ -52,6 +58,7 @@ The run, in order:
 
 from __future__ import annotations
 
+import functools
 import gc
 import importlib.util
 import json
@@ -70,10 +77,8 @@ ROOT = os.path.dirname(BENCH)
 FOLLOWED_WINDOWS = 3
 FORBIDDEN = ("jax", "jaxlib", "flax", "style_big_gan_tpu")
 PEAKS_FILE = os.path.join(BENCH, "peaks.json")
-# each lazy regularizer phase: its name among the compared numbers, its
-# penalty statistic, and the trainer's optimizer and module it steps
-REGS = {"Dreg": ("r1", "Loss/r1_penalty", "opt_d", "D"),
-        "Greg": ("ppl", "Loss/pl_penalty", "opt_g", "G")}
+# the trainer's step of each lazy regularizer phase a family may follow
+REG_STEPS = {"Dreg": "d_reg_step", "Greg": "g_reg_step"}
 
 
 def load_json(path: str) -> dict:
@@ -104,14 +109,37 @@ def limits_of(name: str) -> dict:
     return load_json(os.path.join(BENCH, "limits", f"{name}.json"))
 
 
-def metric_reader(name: str) -> Callable:
-    """``metrics/<name>.py``'s ``read``."""
-    path = os.path.join(BENCH, "metrics", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(
-        "gpubench_metric_" + name.replace(".", "_"), path)
+def _load(path: str, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def metric_reader(name: str) -> Callable:
+    """``metrics/<name>.py``'s ``read``."""
+    return _load(os.path.join(BENCH, "metrics", f"{name}.py"),
+                 "gpubench_metric_" + name.replace(".", "_")).read
+
+
+def family(config: dict):
+    """``families/<family>.py`` of a configuration, by its ``"family"``
+    (families/stylegan2.py says what such a module gives), loaded once a
+    process; raises FileNotFoundError, naming the file, where the
+    configuration names no family or no such file exists."""
+    name = config.get("family")
+    path = os.path.join(BENCH, "families", f"{name or '<family>'}.py")
+    if not name or not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"configuration {config.get('name')!r} names "
+            f"{'family ' + repr(name) if name else 'no family'}: no file "
+            f"{os.path.relpath(path, ROOT)}")
+    return _family_at(path, name)
+
+
+@functools.lru_cache(maxsize=None)
+def _family_at(path: str, name: str):
+    return _load(path, "gpubench_family_" + name.replace(".", "_"))
 
 
 def periods(seconds: float, first_period_s: float) -> int:
@@ -122,9 +150,12 @@ def periods(seconds: float, first_period_s: float) -> int:
 
 def second_period(seconds: float, first_period_s: float) -> bool:
     """Whether set-up runs a second period for the pace: where the first,
-    which holds the eager window and the capture, took less than twice
-    ``seconds``."""
-    return first_period_s < 2 * seconds
+    which holds the eager window and the capture, took less than six times
+    ``seconds``.  The period right after the first is not yet steady (at
+    ffhq256 it read 113.1-118.7 imgs/s, the one after 118.9-119.5; PERF.md,
+    section 2); a first period of six times ``seconds`` or more belongs to a
+    recipe whose periods are too long for a run to afford one more."""
+    return first_period_s < 6 * seconds
 
 
 def forbidden_modules(modules=None) -> List[str]:
@@ -186,10 +217,11 @@ class Probe:
     """The harness's hooks on one trainer (module docstring, 2-5)."""
 
     def __init__(self, trainer, seconds: float, trace: bool, sync,
-                 timed: Optional[int] = None):
-        from gpubench.reference.training import Readings
+                 timed: Optional[int] = None, regs: Optional[dict] = None):
+        from gpubench.reference.state import Readings
         self.tr, self.seconds, self.trace, self.sync = \
             trainer, seconds, trace, sync
+        self.regs = regs or {}   # the family's REGS
         self.ticks: List[Tick] = []
         self.start = 0
         self.timed: Optional[int] = None
@@ -235,8 +267,9 @@ class Probe:
                                  ("G", self.tr.opt_g, self.tr.G)):
             self._first_step_hook(key, opt, module)
         steps = self.tr.steps
-        steps.d_reg_step = self._reg_call("Dreg", steps.d_reg_step)
-        steps.g_reg_step = self._reg_call("Greg", steps.g_reg_step)
+        for phase in self.regs:
+            name = REG_STEPS[phase]
+            setattr(steps, name, self._reg_call(phase, getattr(steps, name)))
 
     def _reg_call(self, phase: str, step):
         """``step`` (the trainer's R1 or PPL call) that, in a followed
@@ -244,7 +277,7 @@ class Probe:
         gradient each parameter gave the optimizer (from Adam's first
         moment before and after: g = (m1 - beta1 m0) / (1 - beta1))."""
         import torch
-        _, stat, opt_name, mod_name = REGS[phase]
+        _, stat, opt_name, mod_name = self.regs[phase]
         calls: Dict[int, int] = {}
 
         def call(*args):
@@ -320,7 +353,7 @@ class Probe:
     def state(self):
         """The program's state at the start of a window, on the host."""
         import torch
-        from gpubench.reference.training import State
+        from gpubench.reference.state import State
         tr = self.tr
         adam = {}
         for key, opt, module in (("G", tr.opt_g, tr.G), ("D", tr.opt_d, tr.D)):
@@ -341,14 +374,21 @@ class Probe:
             pl_mean=float(tr.state.reg_state.get("pl_mean", 0.0)))
 
     def keep_losses(self, stats_list) -> None:
+        """Each D and G loss row of a window with its batch's index in the
+        window: D's k rows are batches 0..k-1; G's k / n_dis rows are the
+        first batch of each critic window of n_dis batches
+        (``StepRunner.window``), n_dis read from the rows' counts."""
         w = self.calls
         for st in stats_list:
             if "Loss/D/loss" in st:        # a window: D and G interleaved
                 d = st["Loss/D/loss"].float().cpu().tolist()
                 g = st["Loss/G/loss"].float().cpu().tolist()
-                for dv, gv in zip(d, g):
-                    self.program.losses += [("Loss/D/loss", w, dv),
-                                            ("Loss/G/loss", w, gv)]
+                n_dis = len(d) // max(len(g), 1)
+                for i, dv in enumerate(d):
+                    self.program.losses.append(("Loss/D/loss", w, i, dv))
+                    if i % n_dis == 0 and i // n_dis < len(g):
+                        self.program.losses.append(
+                            ("Loss/G/loss", w, i, g[i // n_dis]))
 
     # -- ticks and the window
     def on_tick(self, *_):
@@ -427,12 +467,19 @@ def _worst_leaf(prog: Dict[str, float], ref: Dict[str, float]) -> list:
 
 
 def _loss_gaps(prog, ref) -> List[float]:
-    """Relative gap of each phase's loss statistic, in order; inf where the
-    two sides ran other phases."""
-    if [k[:2] for k in prog.losses] != [k[:2] for k in ref.losses]:
+    """Relative gap of each loss statistic of the reference, in its order,
+    to the program's of the same statistic, window and batch index; inf
+    where the two sides ran other phases."""
+    mine = {k[:3]: k[3] for k in prog.losses}
+    if len(mine) != len(prog.losses) or \
+            set(mine) != {k[:3] for k in ref.losses}:
         return [math.inf] * max(1, len(ref.losses))
-    return [abs(p - r) / max(abs(r), 1e-30) if math.isfinite(p) else math.inf
-            for (_, _, p), (_, _, r) in zip(prog.losses, ref.losses)]
+    gaps = []
+    for *key, r in ref.losses:
+        p = mine[tuple(key)]
+        gaps.append(abs(p - r) / max(abs(r), 1e-30) if math.isfinite(p)
+                    else math.inf)
+    return gaps
 
 
 def _change_gap(prog, ref, window: int, median: bool = False) -> float:
@@ -462,14 +509,14 @@ def _change_gap(prog, ref, window: int, median: bool = False) -> float:
     return statistics.median(gaps) if median else max(gaps)
 
 
-def _reg_gaps(prog, ref) -> Dict[str, float]:
-    """Per regularizer (``r1``, ``ppl``): the largest relative gap of a
-    call's penalty, ``<reg>_penalty``, and the worst leaf's gap of the
-    gradient a call gave its optimizer, ``<reg>_grad`` (``_leaf_gap``),
-    over its calls in the followed windows; inf where the two sides made
-    other calls."""
+def _reg_gaps(prog, ref, regs: dict) -> Dict[str, float]:
+    """Per regularizer of the family's ``regs`` (``r1``, ``ppl``): the
+    largest relative gap of a call's penalty, ``<reg>_penalty``, and the
+    worst leaf's gap of the gradient a call gave its optimizer,
+    ``<reg>_grad`` (``_leaf_gap``), over its calls in the followed windows;
+    inf where the two sides made other calls."""
     out: Dict[str, float] = {}
-    for phase, (name, *_) in REGS.items():
+    for phase, (name, *_) in regs.items():
         r = [c for c in ref.regs if c[0] == phase]
         if not r:
             continue
@@ -485,14 +532,18 @@ def _reg_gaps(prog, ref) -> Dict[str, float]:
     return out
 
 
-def compare(prog, ref) -> Dict[str, float]:
+def compare(prog, ref, regs: dict) -> Dict[str, float]:
     """The compared numbers (PERF.md, section 2), over the followed
     windows, each computed by the reference from the program's state at
     its start (the first from the seed):
 
     * ``loss``: the largest relative gap of the first batch's D and G loss
       in any window (later batches' losses carry the previous batches'
-      round-off, which training multiplies about tenfold a batch);
+      round-off, which training multiplies about tenfold a batch), but the
+      first window's G loss: it follows D's first Adam step, which moves
+      each leaf by about the sign of its gradient, so round-off flips the
+      step of a leaf whose gradient is near nought and the gap swings
+      between seeds from 1e-5 to 1e-2 (PERF.md, section 2);
     * ``grad1``: the worst leaf's gap of the first gradient's norm, D's and
       G's leaves, against the larger of the leaf's and the median leaf's
       reference norm;
@@ -502,24 +553,20 @@ def compare(prog, ref) -> Dict[str, float]:
       noise (PERF.md, section 2);
     * ``r1_penalty``, ``r1_grad``, ``ppl_penalty``, ``ppl_grad``: each
       regularizer call's penalty and gradient, from the program's state
-      just before it (``_reg_gaps``), where the configuration has it.
+      just before it (``_reg_gaps``), where the configuration has it;
+      ``regs`` is the family's ``REGS``.
     """
     gaps = _loss_gaps(prog, ref)
-    firsts = []
-    if len(gaps) == len(ref.losses):
-        seen = {}
-        for g, (k, w, _) in zip(gaps, ref.losses):
-            if k in ("Loss/D/loss", "Loss/G/loss") and \
-                    (k, w) not in seen:
-                seen[(k, w)] = g
-        firsts = list(seen.values())
+    firsts = [g for g, (k, w, i, _) in zip(gaps, ref.losses)
+              if i == 0 and (w, k) != (0, "Loss/G/loss")] \
+        if len(gaps) == len(ref.losses) else []
     return {
         "loss": max(firsts or gaps),
         "grad1": max((_leaf_gap(prog.grad1.get(k, {}), ref.grad1[k])
                       for k in ref.grad1), default=math.inf),
         "change": max((_change_gap(prog, ref, w, median=True)
                        for w in range(FOLLOWED_WINDOWS)), default=math.inf),
-        **_reg_gaps(prog, ref),
+        **_reg_gaps(prog, ref, regs),
     }
 
 
@@ -531,10 +578,10 @@ def detail(prog, ref) -> Dict[str, object]:
     gaps = _loss_gaps(prog, ref)
     out: Dict[str, object] = {}
     if len(gaps) == len(ref.losses):
-        for w in sorted({w for _, w, _ in ref.losses}):
-            out[f"loss_w{w}"] = max(g for g, (_, v, _) in
+        for w in sorted({w for _, w, _, _ in ref.losses}):
+            out[f"loss_w{w}"] = max(g for g, (_, v, _, _) in
                                     zip(gaps, ref.losses) if v == w)
-        out["losses_by_phase"] = [[k, w, g] for g, (k, w, _) in
+        out["losses_by_phase"] = [[k, w, g] for g, (k, w, _, _) in
                                   zip(gaps, ref.losses)]
     for w in sorted(ref.change):
         out[f"change_w{w}"] = _change_gap(prog, ref, w)
@@ -581,14 +628,15 @@ def run(workload_name: str, seed: int, seconds: float, trace: bool,
     ``config``, ``traffic`` and ``limits`` replace the cell's files (the
     tests' micro sizes); ``device`` "cpu" runs it on the CPU (tests
     only); ``timed`` fixes the number of timed periods (0: the comparison
-    alone, for readings.py)."""
-    import torch
-    from gpubench import datagen
-    from gpubench.reference import training
-
+    alone, for readings.py).  The configuration's family is found before
+    anything is built."""
     w = workload(workload_name)
     config = config or config_of(w["config"])
     traffic = traffic or traffic_of(w["traffic"])
+    fam = family(config)
+    import torch
+    from gpubench import datagen
+
     prog_seed, data_seed = seeds(seed)
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -609,7 +657,7 @@ def run(workload_name: str, seed: int, seconds: float, trace: bool,
                                        device, extra_overrides))
         registries._import_all()
         trainer = registries.trainers[str(cfg.exp.trainer)]()
-        probe = Probe(trainer, seconds, trace, sync, timed)
+        probe = Probe(trainer, seconds, trace, sync, timed, fam.REGS)
         probe.install()
         trainer.run(cfg)
         peak = torch.cuda.max_memory_allocated() if cuda else 0
@@ -627,12 +675,12 @@ def run(workload_name: str, seed: int, seconds: float, trace: bool,
         if cuda:
             torch.cuda.empty_cache()
         t_ref = time.time()
-        ref = training.follow(config, traffic, prog_seed, data_seed,
-                              FOLLOWED_WINDOWS, device, states=states)
+        ref = fam.follow(config, traffic, prog_seed, data_seed,
+                         FOLLOWED_WINDOWS, device, states=states)
         log(f"[gpubench] reference: {time.time() - t_ref:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    numbers = compare(program, ref)
+    numbers = compare(program, ref, fam.REGS)
     limits = limits if limits is not None else limits_of(workload_name)
     # a number its limits file leaves out has no upper reading in that
     # cell and is not compared there (PERF.md, section 2)

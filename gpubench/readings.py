@@ -49,8 +49,10 @@ def main(argv=None) -> int:
             import pytest
             from gpubench import faults
             mp = pytest.MonkeyPatch()
+            planted = faults.of(harness.config_of(
+                harness.workload(args.workload)["config"]))
             for name in args.fault:
-                faults.FAULTS[name](mp)
+                planted[name](mp)
             try:
                 r = harness.run(args.workload, seed, 0.0, False, timed=0,
                                 log=lambda s: print(s, file=sys.stderr))

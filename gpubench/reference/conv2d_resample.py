@@ -12,7 +12,9 @@ conv2d_resample.py:59-154) with the same padding arithmetic and cases:
   plain     : one conv.
 
 Layouts are torch's: x NCHW, w OIHW.  ``flip_weight=True`` means
-cross-correlation (``F.conv2d``), False true convolution.
+cross-correlation (``F.conv2d``), False true convolution.  The convolutions
+are ``conv.py``'s: ``F.conv2d`` / ``F.conv_transpose2d``, in float32 on
+bfloat16 operands inside its scope (PPL).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from gpubench.reference import conv
 from gpubench.reference.precision import rounded
 from gpubench.reference.upfirdn2d import _filter_taps, upfirdn2d
 
@@ -59,7 +62,8 @@ def conv2d_resample(x: torch.Tensor, w: torch.Tensor,
         # conv_transpose2d correlates the zero-inserted input with the
         # spatially flipped, in/out-swapped kernel.
         wt = (w if not flip_weight else w.flip([2, 3])).transpose(0, 1)
-        x = F.conv_transpose2d(rounded(x), wt, stride=up, padding=(pyt, pxt))
+        x = conv.conv_transpose2d(rounded(x), wt, stride=up,
+                                 padding=(pyt, pxt))
         x = upfirdn2d(x, f, padding=(px0 + pxt, px1 + pxt, py0 + pyt,
                                      py1 + pyt),
                       gain=up ** 2, flip_filter=flip_filter)
@@ -72,10 +76,10 @@ def conv2d_resample(x: torch.Tensor, w: torch.Tensor,
         if f is not None and (fh > 1 or fw > 1):
             x = upfirdn2d(x, f, padding=(px0, px1, py0, py1),
                           flip_filter=flip_filter)
-            return F.conv2d(rounded(x), wq, stride=down, groups=groups)
+            return conv.conv2d(rounded(x), wq, stride=down, groups=groups)
         x = F.pad(x, [px0, px1, py0, py1])
-        return F.conv2d(rounded(x), wq, stride=down, groups=groups)
+        return conv.conv2d(rounded(x), wq, stride=down, groups=groups)
     if px0 == px1 == py0 == py1:
-        return F.conv2d(rounded(x), wq, padding=px0, groups=groups)
-    return F.conv2d(rounded(F.pad(x, [px0, px1, py0, py1])), wq,
-                    groups=groups)
+        return conv.conv2d(rounded(x), wq, padding=px0, groups=groups)
+    return conv.conv2d(rounded(F.pad(x, [px0, px1, py0, py1])), wq,
+                       groups=groups)

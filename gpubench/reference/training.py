@@ -11,11 +11,13 @@ copy of G), the same data (the images and labels of ``datagen`` in the
 order of the loader's windowed reshuffle, mirrored views for ``mirror``,
 the generator's labels drawn per window), the same draws from one training
 ``torch.Generator`` in the same order (latents, style mixing, noise, the
-ADA pipe, PPL's image-space noise), and per window the phases in the
-trainer's order: Dmain then Gmain for each of its k batches, then every R1
-due in the window, then every PPL due, each on its own batch.  Every layer
-is a frozen plain copy (this folder); the warp of the ADA pipe is its plain
-PyTorch form, and Adam and the EMA are written out here.
+ADA pipe where the traffic names one, PPL's image-space noise), and per
+window the phases in the trainer's order: Dmain then Gmain for each of its
+k batches, then every R1 due in the window, then every PPL due, each on its
+own batch.  Every layer is a frozen plain copy (this folder); the warp of
+the ADA pipe is its plain PyTorch form, aten's autograd differentiates
+every convolution (PPL's bfloat16 ones twice in float32, conv.py), and
+Adam and the EMA are written out here.
 
 Each lazy regularizer call (R1, PPL) starts from the state the trainer
 had just before it, where one is given, so that it is judged on its own:
@@ -36,46 +38,18 @@ from __future__ import annotations
 
 import copy
 import math
-from dataclasses import dataclass, field
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from gpubench import datagen
+from gpubench.reference import conv
 from gpubench.reference.ada import AUGPIPE_SPECS, AugmentPipe
 from gpubench.reference.precision import lower_precision
+from gpubench.reference.state import Readings, State
 from gpubench.reference.stylegan2 import Discriminator, Generator
-
-
-@dataclass
-class Readings:
-    """What one side (the program or the reference) produced."""
-    losses: List[Tuple[str, int, float]] = field(default_factory=list)
-    grad1: Dict[str, Dict[str, float]] = field(default_factory=dict)
-    # window -> module -> parameter -> norm of its change over the
-    # window's Dmain and Gmain phases
-    change: Dict[int, Dict[str, Dict[str, float]]] = field(
-        default_factory=dict)
-    # (phase, window, call in the window, penalty, parameter -> gradient
-    # norm) of every Dreg and Greg call
-    regs: List[Tuple[str, int, int, float, Dict[str, float]]] = field(
-        default_factory=list)
-
-
-@dataclass
-class State:
-    """A trainer's state at the start of a window or of a regularizer
-    call (keyed ``("start", window)``, ``("Dreg", window, call)``,
-    ``("Greg", window, call)``), on the host: each
-    module's ``state_dict``, each optimizer's (first moment, second moment,
-    step count) by parameter name, the training generator's state and
-    PPL's running mean."""
-    modules: Dict[str, Dict[str, torch.Tensor]]
-    adam: Dict[str, Dict[str, Tuple[torch.Tensor, torch.Tensor, int]]]
-    generator: torch.Tensor
-    pl_mean: float
 
 
 def infinite_sampler(n: int, seed: int, window_size: float = 0.5
@@ -180,7 +154,10 @@ class Follower:
         self.G = Generator(**common, **c["generator"]).to(device)
         self.D = Discriminator(**common, **c["discriminator"]).to(device)
         self.G_ema = copy.deepcopy(self.G).eval().requires_grad_(False)
-        self.pipe = AugmentPipe(**AUGPIPE_SPECS[traffic["augpipe"]])
+        # no pipe, and no draw for one, where the traffic has none (the
+        # program's aug=noaug)
+        self.pipe = None if traffic["augpipe"] is None else \
+            AugmentPipe(**AUGPIPE_SPECS[traffic["augpipe"]])
         self.p = torch.tensor(float(traffic["p"]), device=device)
         self.gen = torch.Generator(device=device)
         self.gen.manual_seed(self.seed)
@@ -240,7 +217,9 @@ class Follower:
                                  generator=self.gen)
 
     def run_D(self, img, c):
-        return self.D(self.pipe(img, self.gen, self.p), c)
+        if self.pipe is not None:
+            img = self.pipe(img, self.gen, self.p)
+        return self.D(img, c)
 
     # ----------------------------------------------------------- phases
 
@@ -285,8 +264,8 @@ class Follower:
         self.out.regs.append((phase, self.window_index, call,
                               float(stats[key]), norms))
 
-    def _record(self, stats, key: str) -> None:
-        self.out.losses.append((key, self.window_index,
+    def _record(self, stats, key: str, index: int) -> None:
+        self.out.losses.append((key, self.window_index, index,
                                 float(stats[key])))
 
     def d_main(self, z, real, rc, gc):
@@ -315,18 +294,18 @@ class Follower:
             F.softplus(gen_l.float()).mean()
         return loss, {"Loss/D/loss": loss}
 
-    def d_step(self, real, rc, gc):
+    def d_step(self, real, rc, gc, index: int):
         z = self._z(gc.shape[0])
         stats = self._rounds(self.D, self.d_main, [z, real, rc, gc])
         self._update(self.D, self.opt_d, "D")
-        self._record(stats, "Loss/D/loss")
+        self._record(stats, "Loss/D/loss", index)
 
     def g_main(self, z, gc):
         img = self.run_G(z, gc, update_emas=True)
         loss = F.softplus(-self.run_D(img, gc).float()).mean()
         return loss, {"Loss/G/loss": loss}
 
-    def g_step(self, gc, beta: torch.Tensor):
+    def g_step(self, gc, beta: torch.Tensor, index: int):
         z = self._z(gc.shape[0])
         self.D.requires_grad_(False)
         stats = self._rounds(self.G, self.g_main, [z, gc])
@@ -337,7 +316,7 @@ class Follower:
                 pe.copy_(p.lerp(pe, beta))
             for be, b in zip(self.G_ema.buffers(), self.G.buffers()):
                 be.copy_(b)
-        self._record(stats, "Loss/G/loss")
+        self._record(stats, "Loss/G/loss", index)
 
     def r1_loss(self, real, rc):
         real = real.detach().float().requires_grad_(True)
@@ -358,13 +337,15 @@ class Follower:
         pl = self.ppl
         rows = max(1, int(z.shape[0] // float(pl["pl_batch_shrink"])))
         z, c = z[:rows], gc[:rows]
-        ws = self.mixed_ws(z, c)
-        img = self.G.synthesize(ws, generator=self.gen).float()
-        h, w = img.shape[2], img.shape[3]
-        noise = torch.randn(img.shape, device=img.device,
-                            generator=self.gen) / np.sqrt(h * w)
-        (g,) = torch.autograd.grad((img * noise).sum(), ws,
-                                   create_graph=True)
+        # bfloat16 convolutions differentiated twice in float32 (conv.py)
+        with conv.float32_operands():
+            ws = self.mixed_ws(z, c)
+            img = self.G.synthesize(ws, generator=self.gen).float()
+            h, w = img.shape[2], img.shape[3]
+            noise = torch.randn(img.shape, device=img.device,
+                                generator=self.gen) / np.sqrt(h * w)
+            (g,) = torch.autograd.grad((img * noise).sum(), ws,
+                                       create_graph=True)
         lengths = g.float().square().sum(dim=2).mean(dim=1).sqrt()
         old = self.pl_mean
         mean = (old + float(pl["pl_decay"]) * (lengths.mean() - old)).detach()
@@ -403,8 +384,8 @@ class Follower:
             [self.ema_beta((batch_idx + j) * self.batch)
              for j in range(self.k)], dtype=torch.float32, device=self.dev)
         for j in range(self.k):
-            self.d_step(real[j], real_c[j], gen_c[j])
-            self.g_step(gen_c[j], betas[j])
+            self.d_step(real[j], real_c[j], gen_c[j], j)
+            self.g_step(gen_c[j], betas[j], j)
         self.out.change[self.window_index] = {
             name: {n: float((p.detach() - p0[name][n]).norm())
                    for n, p in m.named_parameters()}

@@ -8,8 +8,10 @@ Counterpart of style_big_gan_tpu/ops/upfirdn2d.py with its exact semantics:
 the filter is applied as a true convolution unless ``flip_filter``, and the
 upsample's energy gain ``up_x * up_y`` is folded into ``gain`` inside this
 function (as the JAX op does).  Separable (1-D) filters run as two passes,
-2-D filters as one; each is a one-channel ``F.conv2d`` over the channels
-folded into the batch, so autograd differentiates to any order.
+2-D filters as one; each is a one-channel convolution over the channels
+folded into the batch, so autograd differentiates to any order.  The
+convolution is ``conv.py``'s: ``F.conv2d``, in float32 on bfloat16
+operands inside its scope (PPL).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from gpubench.reference.conv import conv2d
 
 
 def _parse_scaling(scaling) -> tuple:
@@ -106,11 +110,11 @@ def upfirdn2d(x: torch.Tensor, f: Optional[torch.Tensor],
     hp, wp = x.shape[2], x.shape[3]
     x = x.reshape(n * c, 1, hp, wp)
     if f.ndim == 2:
-        x = F.conv2d(x, (f * total_gain)[None, None], stride=(downy, downx))
+        x = conv2d(x, (f * total_gain)[None, None], stride=(downy, downx))
     else:
         f = f * float(np.sqrt(total_gain))
-        x = F.conv2d(x, f[None, None, :, None], stride=(downy, 1))
-        x = F.conv2d(x, f[None, None, None, :], stride=(1, downx))
+        x = conv2d(x, f[None, None, :, None], stride=(downy, 1))
+        x = conv2d(x, f[None, None, None, :], stride=(1, downx))
     return x.reshape(n, c, x.shape[2], x.shape[3])
 
 

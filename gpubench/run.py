@@ -38,6 +38,16 @@ def _caches() -> None:
         os.environ[var] = os.path.join(ROOT, "build", "gpubench", sub)
 
 
+def _host_threads() -> None:
+    """One intra-op thread for the host's tensor and array work, set
+    before torch is imported.  A pool of one thread a core spins on the
+    cores that the dispatching thread and the batch-building thread need,
+    and the machine's cores may be shared: sg2ada read 848-1045 imgs/s so,
+    996-1037 with one thread, in turns on the same seeds (PERF.md,
+    section 2)."""
+    os.environ["OMP_NUM_THREADS"] = "1"
+
+
 def power_limit() -> str:
     try:
         out = subprocess.run(
@@ -58,6 +68,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
     _caches()
+    _host_threads()
     try:
         from gpubench import harness
         import style_big_gan_tpu_torch as program
@@ -70,6 +81,11 @@ def main(argv=None) -> int:
         return 2
     import torch
     w = harness.workload(args.workload)
+    try:
+        harness.family(harness.config_of(w["config"]))
+    except FileNotFoundError as e:
+        print(f"gpubench: {e}", file=sys.stderr)
+        return 2
     chips = int(w["chips"])
     have = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if have < chips:

@@ -1,8 +1,9 @@
 """What the comparison must catch, at micro size on the CPU: the control
 (the reference one precision step down in the program's place) and the
 program broken underneath a run by each fault of faults.py that the
-cell's configuration can have.  Each has to come out as not correct under
-the cell's limits."""
+cell's configuration can have (``faults.of``: the trainer's, then its
+family's own).  Each has to come out as not correct under the cell's
+limits."""
 
 import pytest
 import torch
@@ -30,10 +31,9 @@ def _config(cell: str) -> dict:
 
 
 @pytest.mark.parametrize("cell,fault", [
-    (c, f) for c in CELLS for f in faults.FAULTS
-    if faults.applies(f, _config(c))])
+    (c, f) for c in CELLS for f in faults.of(_config(c))])
 def test_a_broken_program_is_not_correct(cell, fault, monkeypatch):
-    faults.FAULTS[fault](monkeypatch)
+    faults.of(_config(cell))[fault](monkeypatch)
     config, traffic, overrides = micro(cell)
     out = harness.run(cell, 12345, 0.1, False, device="cpu", config=config,
                       traffic=traffic, extra_overrides=overrides,

@@ -1,15 +1,23 @@
-"""The harness on the CPU: the manifest resolves by name, the window and
-busy-time arithmetic, the seeded data, the refusal without a card, and a
-whole run of each cell at micro size, where the plain reference follows
-the program bitwise."""
+"""The harness on the CPU: the manifest and each configuration's family
+resolve by name, the window and busy-time arithmetic, the pairing of loss
+rows, the seeded data, the refusal without a card, and a whole run of each
+cell at micro size, where the plain reference follows the program
+bitwise, PPL's numbers aside (reference/conv.py)."""
 
+import copy
 import json
 import os
+import shutil
+import subprocess
+import sys
 import zipfile
 
 import pytest
+import torch
 
 from gpubench import datagen, harness, run, trace
+from gpubench.reference import training
+from gpubench.reference.state import Readings
 from gpubench.tests.micro import micro
 
 CELLS = [w["name"] for w in harness.manifest()["workloads"]]
@@ -21,6 +29,11 @@ def test_every_name_resolves_to_its_file():
         assert os.path.isfile(os.path.join(harness.ROOT, c["file"]))
         assert harness.config_of(c["name"])["name"] == c["name"]
         assert c["file"] == f"gpubench/configs/{c['name']}.json"
+        fam = harness.family(harness.config_of(c["name"]))
+        assert callable(fam.follow) and callable(fam.period_flops) and \
+            callable(fam.micro)
+        assert set(fam.REGS) <= set(harness.REG_STEPS)
+        assert all(callable(f) for f in fam.FAULTS.values())
     for w in m["workloads"]:
         regs = harness.config_of(w["config"])["regularizers"]
         assert harness.traffic_of(w["traffic"])["name"] == w["traffic"]
@@ -35,6 +48,134 @@ def test_every_name_resolves_to_its_file():
         assert set(metric["workloads"]) <= set(CELLS)
 
 
+@pytest.mark.parametrize("family", [None, "no_such_family"])
+def test_a_config_without_its_family_fails_before_the_trainer_is_built(
+        family, monkeypatch):
+    config = copy.deepcopy(harness.config_of("ffhq256_sg2ada"))
+    config.pop("family")
+    if family:
+        config["family"] = family
+
+    def built(*a, **k):
+        raise AssertionError("the run went past the family's lookup")
+    monkeypatch.setattr(datagen, "write_zip", built)
+    with pytest.raises(FileNotFoundError,
+                       match=f"gpubench/families/{family or '<family>'}.py"):
+        harness.run(CELLS[0], 1, 0.1, False, device="cpu", config=config)
+
+
+def _probe_losses(stats) -> Readings:
+    probe = harness.Probe(None, 0.0, False, lambda: None)
+    probe.keep_losses(stats)
+    return probe.program
+
+
+def test_loss_rows_pair_by_statistic_window_and_index():
+    """A window of k = 4 batches under n_dis = 2 has four D rows and two G
+    rows, the G rows on batches 0 and 2 (StepRunner.window); the reference
+    lists them in another order and the gaps still pair row with row."""
+    d, g = [1.0, 2.0, 3.0, 4.0], [10.0, 20.0]
+    prog = _probe_losses([{"Loss/D/loss": torch.tensor(d),
+                           "Loss/G/loss": torch.tensor(g)}])
+    assert prog.losses == [
+        ("Loss/D/loss", 0, 0, 1.0), ("Loss/G/loss", 0, 0, 10.0),
+        ("Loss/D/loss", 0, 1, 2.0), ("Loss/D/loss", 0, 2, 3.0),
+        ("Loss/G/loss", 0, 2, 20.0), ("Loss/D/loss", 0, 3, 4.0)]
+    ref = Readings(losses=[("Loss/G/loss", 0, 2, 16.0),
+                           ("Loss/G/loss", 0, 0, 8.0)] + [
+        ("Loss/D/loss", 0, i, 2.0 * v) for i, v in enumerate(d)])
+    assert harness._loss_gaps(prog, ref) == [0.25, 0.25, 0.5, 0.5, 0.5, 0.5]
+    ref.losses[0] = ("Loss/G/loss", 0, 2, 20.0)
+    ref.losses[1] = ("Loss/G/loss", 0, 0, 10.0)
+    # the first batch's D and G loss of the window: indices 0
+    assert harness.compare(prog, ref, {})["loss"] == 0.5
+    # a row the other side lacks makes every gap infinite
+    ref.losses.append(("Loss/G/loss", 0, 1, 5.0))
+    assert harness._loss_gaps(prog, ref) == [float("inf")] * 7
+    # the first window's G loss, after D's first Adam step, is left out; a
+    # later window's is compared
+    ref.losses[1:] = ref.losses[1:-1]
+    ref.losses[1] = ("Loss/G/loss", 0, 0, 100.0)
+    assert harness.compare(prog, ref, {})["loss"] == 0.5
+    later = [(k, 1, i, v) for k, _, i, v in prog.losses]
+    prog.losses += later
+    ref.losses += [(k, w, i, 10 * v if k == "Loss/G/loss" else v)
+                   for k, w, i, v in later]
+    assert harness.compare(prog, ref, {})["loss"] == 0.9
+
+
+def test_under_n_dis_1_the_rows_alternate_as_before():
+    prog = _probe_losses([{"Loss/D/loss": torch.tensor([1.0, 2.0]),
+                           "Loss/G/loss": torch.tensor([3.0, 4.0])}])
+    assert [k[:3] for k in prog.losses] == [
+        ("Loss/D/loss", 0, 0), ("Loss/G/loss", 0, 0),
+        ("Loss/D/loss", 0, 1), ("Loss/G/loss", 0, 1)]
+
+
+@pytest.mark.parametrize("traffic", ["noaug", "ada_p50"])
+def test_a_traffic_without_a_pipe_draws_nothing_for_one(traffic):
+    """With ``"augpipe": null`` the reference runs D on its input and
+    leaves the training generator as it found it; with a pipe it draws."""
+    config, _, _ = micro("ffhq256_sg2ada.ada_p50")
+    follower = training.Follower(config, harness.traffic_of(traffic), 7, 7,
+                                 torch.device("cpu"))
+    img = torch.randn(4, 3, config["resolution"], config["resolution"])
+    c = torch.zeros(4, 0)
+    before = follower.gen.get_state()
+    logits = follower.run_D(img, c)
+    unchanged = torch.equal(before, follower.gen.get_state())
+    assert unchanged == (traffic == "noaug")
+    if traffic == "noaug":
+        assert torch.equal(logits, follower.D(img, c))
+
+
+def test_a_family_copied_under_another_name_runs_as_new_files_only(
+        tmp_path):
+    """A copy of gpubench/ in which families/stylegan2.py is copied to
+    another family's name, a configuration names it, and the cell is a new
+    limits file and new BENCHMARK.json entries: it resolves to the copy
+    and its micro run is correct, with no file of the copy edited."""
+    shutil.copytree(harness.BENCH, tmp_path / "gpubench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    for name in ("configs", "style_big_gan_tpu_torch"):
+        os.symlink(os.path.join(harness.ROOT, name), tmp_path / name)
+    bench = tmp_path / "gpubench"
+    shutil.copy(bench / "families" / "stylegan2.py",
+                bench / "families" / "twin.py")
+    config = harness.config_of("sg2ada")
+    config.update(name="twin_cifar", family="twin")
+    (bench / "configs" / "twin_cifar.json").write_text(json.dumps(config))
+    shutil.copy(bench / "limits" / "sg2ada.ada_p50.json",
+                bench / "limits" / "twin_cifar.ada_p50.json")
+    m = harness.manifest()
+    m["configs"].append(dict(m["configs"][1], name="twin_cifar",
+                             file="gpubench/configs/twin_cifar.json"))
+    m["workloads"].append(dict(m["workloads"][1], name="twin_cifar.ada_p50",
+                               config="twin_cifar"))
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(m))
+    originals = {p: p.read_bytes() for p in bench.rglob("*") if p.is_file()}
+    code = (
+        "import json, sys\n"
+        f"sys.path.insert(0, {str(tmp_path)!r})\n"
+        "from gpubench import harness\n"
+        "from gpubench.tests.micro import micro\n"
+        "c, t, o = micro('twin_cifar.ada_p50')\n"
+        "out = harness.run('twin_cifar.ada_p50', 2 ** 32 + 3, 0.1, False, "
+        "device='cpu', config=c, traffic=t, extra_overrides=o, "
+        "log=lambda s: None)\n"
+        "print(json.dumps([harness.family(c).__file__, out['correct'], "
+        "{k: v['value'] for k, v in out['checks'].items()}]))\n")
+    p = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                       capture_output=True, text=True, timeout=600,
+                       env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert p.returncode == 0, p.stderr[-3000:]
+    path, correct, checks = json.loads(p.stdout.strip().splitlines()[-1])
+    assert path == str(bench / "families" / "twin.py")
+    assert correct and set(checks) == {"loss", "grad1", "change", "r1_grad"}
+    assert all(v == 0.0 for v in checks.values())
+    assert {p: p.read_bytes() for p in originals} == originals
+
+
 @pytest.mark.parametrize("seconds,first,want", [
     (40, 18.0, 2), (40, 15.0, 3), (5, 20.0, 1), (30, 20.0, 2),
     (30, 9.0, 3), (0.1, 1.0, 1)])
@@ -43,8 +184,8 @@ def test_whole_periods_nearest_the_seconds(seconds, first, want):
 
 
 @pytest.mark.parametrize("seconds,first,want", [
-    (10, 55.0, False), (10, 20.0, False), (10, 14.8, True), (10, 8.7, True),
-    (0.1, 2.5, False)])
+    (10, 65.0, False), (10, 60.0, False), (10, 59.0, True), (10, 20.9, True),
+    (10, 8.7, True), (0.1, 2.5, False)])
 def test_a_second_set_up_period_only_where_the_first_is_short(seconds, first,
                                                               want):
     assert harness.second_period(seconds, first) == want
@@ -126,7 +267,11 @@ def test_a_micro_run_is_correct_and_the_reference_follows_it_bitwise(cell):
                       config=config, traffic=traffic,
                       extra_overrides=overrides, log=lambda s: None)
     assert out["correct"]
-    assert all(c["value"] == 0.0 for c in out["checks"].values())
+    # PPL's bfloat16 convolutions the reference differentiates twice in
+    # float32 (reference/conv.py), the program in bfloat16: no bitwise
+    # match is due there, only the limits that `correct` holds
+    assert all(c["value"] == 0.0 for k, c in out["checks"].items()
+               if not k.startswith("ppl_"))
     rec = out["record"]
     assert rec.timed == 1 and rec.batches == traffic["period_batches"]
     assert out["attempted"] == rec.batches and out["failed"] == 0

@@ -25,9 +25,14 @@ def _loaded(code: str) -> set:
 
 
 def test_the_reference_loads_neither_jax_nor_the_program():
+    """The reference, the FLOP counts and each configuration's family
+    module (its faults import the program only when planted)."""
     top = _loaded("import gpubench.reference.training, "
                   "gpubench.reference.precision, gpubench.flops.stylegan2, "
-                  "gpubench.datagen, gpubench.trace")
+                  "gpubench.datagen, gpubench.trace\n"
+                  "from gpubench import harness\n"
+                  "for c in harness.manifest()['configs']:\n"
+                  "    harness.family(harness.config_of(c['name']))\n")
     assert not top & (JAX_SIDE | {"style_big_gan_tpu_torch"})
 
 
