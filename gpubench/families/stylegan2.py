@@ -11,7 +11,10 @@ same names:
   ``step.mfu`` reads (flops/stylegan2.py);
 * ``REGS``: the lazy regularizer phases it follows, each with its name
   among the compared numbers, its penalty statistic, and the trainer's
-  optimizer and module it steps;
+  optimizer and module it steps (empty for a family with none);
+* ``NOT_BITWISE``: the compared numbers its micro run does not match
+  bitwise, each with its reason; the CPU tests hold every other compared
+  number to 0.0 there;
 * ``FAULTS``: the faults particular to its model, by name (faults.py has
   those of every family);
 * ``micro(config, traffic)``: (config, traffic, program overrides) at the
@@ -26,6 +29,11 @@ from gpubench.reference.training import follow  # noqa: F401
 
 REGS = {"Dreg": ("r1", "Loss/r1_penalty", "opt_d", "D"),
         "Greg": ("ppl", "Loss/pl_penalty", "opt_g", "G")}
+
+_PPL_ROUNDING = ("PPL's bfloat16 convolutions: the reference differentiates "
+                 "them twice in float32 on their bfloat16 operands "
+                 "(reference/conv.py), the program in bfloat16")
+NOT_BITWISE = {"ppl_penalty": _PPL_ROUNDING, "ppl_grad": _PPL_ROUNDING}
 
 
 def altered(monkeypatch):

@@ -38,10 +38,24 @@ def tracer(monkeypatch):
 
 
 def test_the_new_metrics_are_in_the_manifest_and_resolve():
-    by_name = {m["name"]: m for m in harness.manifest()["per_layer"]}
+    """Each per-layer metric lists some of the cells and each cell is in
+    some metric's list; a new cell need not join an existing list; and a
+    regularizer's reader (``regs.<reg>_*``) lists only cells whose
+    configuration has that regularizer."""
+    m = harness.manifest()
+    regs = {w["name"]: harness.config_of(w["config"])["regularizers"]
+            for w in m["workloads"]}
+    by_name = {metric["name"]: metric for metric in m["per_layer"]}
+    assert set(CELLS) <= {c for metric in m["per_layer"]
+                          for c in metric["workloads"]}
+    for metric in m["per_layer"]:
+        cells = metric["workloads"]
+        assert cells and set(cells) <= set(CELLS)
+        if metric["name"].startswith("regs."):
+            reg = metric["name"][len("regs."):].split("_")[0]
+            assert all(reg in regs[c] for c in cells)
     for name in NEW:
-        m = by_name[name]
-        assert m["moves"] == "imgs_per_s" and m["workloads"] == CELLS
+        assert by_name[name]["moves"] == "imgs_per_s"
         assert callable(harness.metric_reader(name))
 
 
@@ -116,8 +130,9 @@ def test_device_ms_per_call(tracer):
 @pytest.mark.parametrize("cell", CELLS)
 def test_a_traced_micro_run_holds_the_profiled_period(cell):
     """On the CPU the profiled period's spans are counted (its one tick's
-    windows and R1s) but carry no device time, so the three readers of
-    device time and the two of device gaps give nothing."""
+    windows, and its R1s where the configuration has R1) but carry no
+    device time, so the three readers of device time and the two of
+    device gaps give nothing."""
     config, traffic, overrides = micro(cell)
     out = harness.run(cell, 2 ** 33 + 5, 0.1, True, device="cpu",
                       config=config, traffic=traffic,
@@ -125,15 +140,17 @@ def test_a_traced_micro_run_holds_the_profiled_period(cell):
     rec = out["record"]
     t = spans.totals(rec)
     period = int(traffic["period_batches"])
+    r1 = config["regularizers"].get("r1")
+    dregs = period // r1["interval"] if r1 else 0
     assert t["phase/cycle"]["count"] == period // config["steps_per_dispatch"]
-    assert t["phase/Dreg"]["count"] == \
-        period // config["regularizers"]["r1"]["interval"]
-    assert t["r1/grad"]["count"] == \
-        t["phase/Dreg"]["count"] * config["batch"] // config["batch_device"]
+    assert t.get("phase/Dreg", {}).get("count", 0) == dregs
+    assert t.get("r1/grad", {}).get("count", 0) == \
+        dregs * config["batch"] // config["batch_device"]
     assert all(v["device_ms"] is None for v in t.values())
     names = {n for n, _, _ in rec.profile.host}
-    assert {"loop/data_wait", "loop/tick", "phase/cycle",
-            "phase/Dreg", "r1/grad"} <= names
+    assert {"loop/data_wait", "loop/tick", "phase/cycle"} <= names
+    r1_names = {"phase/Dreg", "r1/grad"}
+    assert r1_names <= names if r1 else not r1_names & names
     for name in NEW:
         assert _read(name, rec) is None
 
